@@ -1,24 +1,25 @@
-"""hcspmm_tpu — a TPU-native hybrid sparse-matrix-matrix-multiplication (SpMM)
-framework for GNN aggregation, with the capabilities of HC-SpMM
-(ZJU-DAILY/HC-SpMM, arXiv 2412.08902) re-designed for TPU hardware.
+"""hcspmm_tpu — a hybrid sparse-matrix-matrix-multiplication (SpMM)
+framework for GNN aggregation on NVIDIA GPUs, with the capabilities of
+HC-SpMM (ZJU-DAILY/HC-SpMM, arXiv 2412.08902).  The package name records
+that it was first built for a TPU.
 
-Architecture (TPU-first, not a port):
+Architecture:
 
 - ``graphs``   : graph loading (txt/npz/synthetic), CSR building, datasets.
 - ``format``   : host-side window analysis (the equivalent of the reference's
                  GPU ``preprocess``, hybrid_all_kernel.cu:213-408), the LOI
-                 row-window selector, and the TPU execution plan
-                 (MXU block-dense tiles + VPU gather/segment-sum residual).
+                 row-window selector, layout reordering, and the execution
+                 plan (band blocks, dense width buckets, ELL rows, spill).
 - ``ops``      : differentiable hybrid SpMM (``jax.custom_vjp``) and the
-                 fused layer strategies mirroring the reference's eight
-                 autograd functions (GNN_model.py:26-233).
-- ``kernels``  : Pallas TPU kernels for the hot paths.
+                 layer strategies mirroring the reference's eight autograd
+                 functions (GNN_model.py:26-233).
+- ``kernels``  : the Pallas/Triton band kernel for the hot path.
 - ``models``   : GCN / GIN layers and networks (HC-SpMM_main.py:66-110).
 - ``train``    : training loop + CLI with the reference's flag surface.
-- ``parallel`` : multi-chip row-partitioned SpMM with halo exchange over a
+- ``parallel`` : multi-device row-partitioned SpMM with halo exchange over a
                  ``jax.sharding.Mesh`` (net-new; the reference is single-GPU).
-- ``loa``      : LOA graph layout reordering (C++ + NumPy, LOI.cpp equivalent).
-- ``utils``    : config, logging, profiling/roofline, checkpointing.
+- ``native``   : C++ preprocessing and LOA reordering (LOI.cpp equivalent).
+- ``utils``    : logging, profiling/roofline, checkpointing.
 """
 
 __version__ = "0.1.0"

@@ -16,13 +16,13 @@ of the allocated column blocks.  The *live* line (.cu:262) dropped the
 virtually every window to the CUDA-core path; ``mode='degenerate'``
 reproduces that for bit-parity experiments.
 
-Output encoding matches the reference: 0 = memory-bound (CUDA-core /
-TPU gather path), 1 = compute-bound (Tensor-core / TPU MXU block path).
+Output encoding matches the reference: 0 = memory-bound (CUDA-core
+gather path), 1 = compute-bound (tensor-core block path).
 Empty windows get 0 (the reference early-returns over memset zeros,
 .cu:251-252, :356-366).
 
-GPU-fitted coefficients do not transfer to the MXU/VPU trade-off, so
-``fit_logistic`` + ``make_training_set`` rebuild the report §IV-C
+The RTX 3090 fit does not transfer to another card or to this design's
+populations, so ``fit_logistic`` + ``make_training_set`` rebuild the report §IV-C
 procedure: time both paths on synthetic 16-row windows, label each window
 with the faster path, fit a 2-feature logistic model.
 """
@@ -50,7 +50,7 @@ def loi_score(
 
     ``reference_size=True`` uses the reference's ``size = unique - 1``
     (its transition-counting dedup, .cu:213-223) so 'intended' mode is
-    bit-comparable; calibrated TPU coefficients use the true unique count.
+    bit-comparable.
     """
     size = unique_counts.astype(np.float64)
     if reference_size:
@@ -69,7 +69,7 @@ def decide_hybrid_type(
     window_h: int = BLK_H,
     block_w: int = BLK_W,
 ) -> np.ndarray:
-    """Per-window routing: 0 = sparse/gather path, 1 = dense/MXU path."""
+    """Per-window routing: 0 = sparse/gather path, 1 = dense block path."""
     nonempty = edge_counts > 0
     if mode == "all_dense":
         out = np.ones_like(unique_counts)
@@ -90,13 +90,6 @@ def decide_hybrid_type(
             window_h, block_w, reference_size=True,
         )
         out = np.where(score.astype(np.float32) != 0.0, 0, 1)
-    elif mode == "calibrated":
-        score = loi_score(
-            unique_counts, edge_counts, block_partition, coeffs,
-            window_h, block_w, reference_size=False,
-        )
-        sparse = (unique_counts > coeffs.max_cols) | (score > 0.0)
-        out = np.where(sparse, 0, 1)
     else:
         raise ValueError(f"unknown LOI mode: {mode}")
     return np.where(nonempty, out, 0).astype(np.int32)
@@ -135,11 +128,10 @@ def fit_logistic(
 ) -> LOICoefficients:
     """Plain NumPy logistic regression (no sklearn in the image).
 
-    ``max_cols`` defaults to the widest MXU bucket: a freshly calibrated
-    TPU selector must not inherit the reference's GPU cap of 32, which
+    ``max_cols`` defaults to the widest dense bucket: a freshly
+    calibrated selector must not inherit the reference's cap of 32, which
     would force-route every wider window sparse regardless of the fitted
-    coefficients (the measured v5e crossover favors MXU almost
-    everywhere — see config.LOI_TPU_V5E)."""
+    coefficients."""
     x = np.asarray(features, dtype=np.float64)
     y = np.asarray(labels, dtype=np.float64)
     # sample weights (e.g. window counts per mixture bin) normalized to

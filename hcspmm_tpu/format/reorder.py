@@ -13,7 +13,7 @@ Here it is a library call with two backends:
   tests and small graphs).
 
 Also provides ``rcm_reorder`` (reverse Cuthill-McKee via scipy) — the
-bandwidth-minimizing ordering that feeds the TPU *banded* execution path
+bandwidth-minimizing ordering that feeds the *banded* execution path
 (no reference equivalent; the GPU gets this reuse implicitly from L2).
 """
 
@@ -247,7 +247,7 @@ def pack_reorder(row_pointers, column_index, num_nodes: int,
     remainder start at the next bin boundary, and smaller components
     back-fill the remainders (first-fit decreasing) — so most superwindows
     see only whole components and extents hug the component size.  The
-    TPU-shaped analog of the reference's LOA objective (fewer unique
+    band-path analog of the reference's LOA objective (fewer unique
     columns per window -> here: smaller band extent per superwindow).
     """
     import scipy.sparse as sp
@@ -480,7 +480,7 @@ def cluster_reorder(row_pointers, column_index, num_nodes: int,
     their global-RCM relative order so multi-bin communities stay
     banded.  The mixing edges spill (format.plan band_spill).
 
-    TPU-design note: this is the band-path analog of the reference's
+    Design note: this is the band-path analog of the reference's
     LOA objective (LOI.cpp:660-805 regroups rows for window density;
     here rows regroup for superwindow extent).
     """

@@ -10,7 +10,7 @@ The reference builds, on-GPU with thrust + three kernels:
 
 Here the whole pipeline is vectorized NumPy on the host (it runs once per
 graph and feeds static-shaped device arrays, so there is nothing for the
-TPU to do); the per-window dedup that the reference runs single-threaded
+device to do); the per-window dedup that the reference runs single-threaded
 per block is a single ``np.unique`` over (window, col) keys.
 
 Semantics preserved:
@@ -199,7 +199,7 @@ class WindowAnalysis:
     unique_counts: np.ndarray    # int32 [W]: # unique neighbour columns
     edge_counts: np.ndarray      # int32 [W]: # edges (nnz) in window
     block_partition: np.ndarray  # int32 [W]: ceil(unique/BLK_W)
-    hybrid_type: np.ndarray      # int32 [W]: 0 = sparse/gather path, 1 = dense/MXU path
+    hybrid_type: np.ndarray      # int32 [W]: 0 = sparse/gather path, 1 = dense block path
 
     # Flat sorted-unique columns per window, CSR-indexed by unique_ptr.
     unique_cols: np.ndarray      # int32 [sum(unique_counts)]
@@ -300,15 +300,10 @@ def analyze_windows(
     edge_counts = (ends - starts).astype(np.int32)
     block_partition = ((unique_counts + block_w - 1) // block_w).astype(np.int32)
 
-    # 'calibrated' defaults to the coefficients refit on this hardware
-    # (tools/calibrate_loi.py) unless the caller supplies custom ones;
-    # other modes default to the reference's GPU-fitted values.  None is
-    # the ONLY 'unset' sentinel — an explicitly passed LOICoefficients()
-    # (the reference GPU values) is honored verbatim.
+    # None = the reference's GPU-fitted values; explicit coefficients
+    # (e.g. a refit from format.loi.calibrate) are honored verbatim
     if loi_coeffs is None:
-        from hcspmm_tpu.config import LOI_TPU_V5E
-
-        loi_coeffs = LOI_TPU_V5E if loi_mode == "calibrated" else LOICoefficients()
+        loi_coeffs = LOICoefficients()
     hybrid_type = loi.decide_hybrid_type(
         unique_counts=unique_counts,
         edge_counts=edge_counts,

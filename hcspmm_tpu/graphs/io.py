@@ -47,7 +47,7 @@ def save_edges_npz(path: str, src: np.ndarray, dst: np.ndarray, num_nodes: int) 
 
 
 def load_edges_any(path: str) -> Tuple[np.ndarray, np.ndarray, int]:
-    """Real-dataset adapter (VERDICT r2 #10): load whatever adjacency
+    """Real-dataset adapter: load whatever adjacency
     format a public download ships as.  Returns (src, dst, num_nodes).
 
     Accepted (detected, not configured):

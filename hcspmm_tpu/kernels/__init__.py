@@ -1,3 +1,2 @@
-"""Hand-written Pallas TPU kernels for the hybrid SpMM hot path."""
-
-from hcspmm_tpu.kernels.block_spmm import spmm_pallas  # noqa: F401
+"""Hand-written kernels for the hybrid SpMM hot path (Pallas through
+Triton, for NVIDIA GPUs)."""

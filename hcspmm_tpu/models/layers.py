@@ -6,7 +6,7 @@ Parity notes:
   (GNN_model.py:267-268), so ``init='randn'`` is the default and
   ``init='glorot'`` is the sane extension;
 - each layer carries a ``fixed`` strategy in {0: hidden, 1: first,
-  2: final} selecting the kernel combo (GNN_model.py:277-282).  On TPU the
+  2: final} selecting the kernel combo (GNN_model.py:277-282).  Here the
   strategies map to the same two op orders (ops.fused); the surface is
   kept so models and benchmarks mirror the reference layer-for-layer.
 """
@@ -83,35 +83,8 @@ class SAGEConv:
             agg = spmm.mean(x)
         else:
             agg = spmm(x)
-        # The bound operator states whether activations are in the closed
-        # padded layout; shape inference cannot (input dims that are
-        # already 128-multiples would skip the lane padding and emit a
-        # non-lane-padded activation, which Mosaic rejects on real TPUs).
-        padded = bool(getattr(spmm, "padded_layout", False))
-        dense = getattr(spmm, "dense", None)
-        if dense is not None:
-            # layout-owning dense update (transposed layouts have no
-            # right-multiply form — train.loop._Bound.dense)
-            hs = dense(x, params["w_self"]).astype(jnp.float32)
-            hn = dense(agg, params["w_neigh"]).astype(jnp.float32)
-            return (hs + hn).astype(x.dtype)
-
-        def w(name):
-            wm = params[name]
-            if padded:
-                pw = getattr(spmm, "pad_weight", None)
-                if pw is not None:
-                    # the operator owns the layout (lane-padded or folded
-                    # block-diagonal — ops.spmm.HybridSpMM.pad_weight)
-                    return pw(wm, x)
-                # zero-pad W rows to the padded feature width and cols to
-                # a lane multiple (zero rows/cols preserve the closed
-                # layout's zero invariant)
-                dpo = -(-wm.shape[1] // 128) * 128
-                wm = jnp.pad(wm, ((0, x.shape[1] - wm.shape[0]),
-                                  (0, dpo - wm.shape[1])))
-            return wm.astype(x.dtype)
-
-        hs = jnp.dot(x, w("w_self"), preferred_element_type=jnp.float32)
-        hn = jnp.dot(agg, w("w_neigh"), preferred_element_type=jnp.float32)
+        hs = jnp.dot(x, params["w_self"].astype(x.dtype),
+                     preferred_element_type=jnp.float32)
+        hn = jnp.dot(agg, params["w_neigh"].astype(x.dtype),
+                     preferred_element_type=jnp.float32)
         return (hs + hn).astype(x.dtype)

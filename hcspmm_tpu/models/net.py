@@ -69,15 +69,8 @@ def net_forward(
     x: jnp.ndarray,
     dropout_rng: Optional[jax.Array] = None,
     train: bool = False,
-    out_slice=None,
 ) -> jnp.ndarray:
-    """Returns log-probabilities [N, classes] (F.log_softmax, main.py:87).
-
-    ``out_slice=(rows, cols)`` slices the final logits before the softmax
-    — required in the padded activation layout, where zero-padded class
-    columns must not participate in the softmax normalization.  A
-    callable ``out_slice`` maps the final activation to logits itself
-    (folded layouts unfold here — ops.spmm.HybridSpMM.unpad_output)."""
+    """Returns log-probabilities [N, classes] (F.log_softmax, main.py:87)."""
     dims = net.layer_dims()
     h = x
     for i, (_, _, fixed) in enumerate(dims):
@@ -91,8 +84,4 @@ def net_forward(
             keep = 1.0 - net.dropout
             mask = jax.random.bernoulli(dropout_rng, keep, h.shape)
             h = jnp.where(mask, h / keep, 0.0)
-    if callable(out_slice):
-        h = out_slice(h)
-    elif out_slice is not None:
-        h = h[: out_slice[0], : out_slice[1]]
     return jax.nn.log_softmax(h, axis=-1)

@@ -1,4 +1,4 @@
-// Native cluster-agglomeration backend (VERDICT r3 next #8).
+// Native cluster-agglomeration backend.
 //
 // Bit-identical C++ port of format/reorder.py::_agglomerate_labels —
 // size-capped hash-parity heavy-edge agglomeration.  The NumPy version's

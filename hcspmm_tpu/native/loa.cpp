@@ -4,7 +4,7 @@
 // equivalent of the reference's standalone reorderer (LOI.cpp:660-805,
 // `reorder_plus_new_direct`): greedily regroup rows into window_h-row
 // windows maximizing *computing intensity* = nnz / unique_cols per window
-// (report Eq. 5/6, Alg. 5/6), so more windows qualify for the dense/MXU
+// (report Eq. 5/6, Alg. 5/6), so more windows qualify for the dense
 // path and gather bandwidth per nnz drops.
 //
 // Differences from the reference (deliberate):
@@ -18,7 +18,7 @@
 //    candidate generation (a hub makes every row a candidate and turns
 //    the greedy quadratic); the reference has no such guard;
 //  - column budget: windows stop growing early when the unique-column
-//    set would exceed max_cols (keeps windows MXU-bucket-sized).
+//    set would exceed max_cols (keeps windows dense-bucket-sized).
 //
 // Exposed as a C ABI for ctypes (no pybind11 in this image).
 
@@ -151,7 +151,7 @@ int32_t loa_reorder(const int32_t* rp, const int32_t* ci,
       int32_t deg = rp[best + 1] - rp[best];
       if ((int64_t)cols.size() + deg - cns[best] > max_cols &&
           (int64_t)cols.size() > 0) {
-        break;  // would overflow the widest MXU bucket
+        break;  // would overflow the widest dense bucket
       }
       visited[best] = 1;
       perm_out[out_pos++] = best;

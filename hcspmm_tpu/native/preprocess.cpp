@@ -86,7 +86,7 @@ int32_t hcspmm_analyze_windows(const int32_t* rp, const int32_t* ci,
 }
 
 // Band extents per superwindow: min/max column of each bh-row slice
-// (the geometry behind the banded MXU path; format/plan.py).
+// (the geometry behind the banded path; format/plan.py).
 int32_t hcspmm_band_extents(const int32_t* rp, const int32_t* ci,
                             int64_t n, int32_t band_h, int64_t* min_col,
                             int64_t* max_col) {

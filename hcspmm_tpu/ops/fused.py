@@ -36,16 +36,10 @@ def aggregate(spmm: Callable, x: jnp.ndarray) -> jnp.ndarray:
 
 
 def update_then_aggregate(spmm: Callable, x: jnp.ndarray, w: jnp.ndarray) -> jnp.ndarray:
-    """GCN layer core: A @ (X W).
-
-    When ``spmm`` exposes ``gcn_fused`` (ops.spmm.HybridSpMM through the
-    train loop's closure), the backward runs the fused Pallas kernel —
-    one kernel produces (A dZ) W^T and A dZ, the reference's headline
-    fused backward (Table VI).  Otherwise autodiff through the custom VJP
-    yields the same dataflow as separate ops.
-    """
-    if hasattr(spmm, "gcn_fused"):
-        return spmm.gcn_fused(x, w)
+    """GCN layer core: A @ (X W).  Autodiff through the SpMM's custom VJP
+    yields the reference's backward dataflow as separate ops (a fused
+    aggregation + update kernel, reference Table VI, is not written for
+    this card yet)."""
     return spmm(jnp.dot(x, w, preferred_element_type=jnp.float32).astype(x.dtype))
 
 
@@ -53,10 +47,7 @@ def aggregate_then_update(spmm: Callable, x: jnp.ndarray, w: jnp.ndarray) -> jnp
     """GIN layer core: (A @ X) W with the aggregate as the saved residual,
     matching HCSPMMFunction_GINFixed32 (GNN_model.py:166-184): the weight
     gradient is formed against A@X, and dX flows through one aggregation.
-    ``gin_fused`` computes both in one Pallas kernel when available.
     """
-    if hasattr(spmm, "gin_fused"):
-        return spmm.gin_fused(x, w)
     ax = spmm(x)
     return jnp.dot(ax, w, preferred_element_type=jnp.float32).astype(x.dtype)
 

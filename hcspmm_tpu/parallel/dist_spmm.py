@@ -2,7 +2,7 @@
 
 One shard_map program serves all devices: each device slices its shard's
 plan arrays (leading shard axis, in_spec P(axis)), assembles its X view
-(all_gather or ppermute halo rounds over ICI), runs the same local hybrid
+(all_gather or ppermute halo rounds, which XLA hands to NCCL), runs the same local hybrid
 SpMM as the single-chip path, and emits its row block (out_spec P(axis)).
 
 Backward reuses the forward operator (the reference's symmetric-structure
@@ -21,56 +21,28 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # JAX >= 0.8 exports shard_map at top level
-    from jax import shard_map as _shard_map_mod  # noqa: F401
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
-from hcspmm_tpu.ops.spmm import _spmm_xla, _dtype
+from hcspmm_tpu.ops.spmm import SpmmShape, _dtype, spmm_apply
 from hcspmm_tpu.parallel.partition import ShardedPlan, pad_rows
 
 
-def _local_spmm(arrs, x_view, sharded: ShardedPlan, compute_dtype):
-    if sharded.impl == "pallas" and sharded.plans:
-        # Shard-local compute through the same Pallas kernels as the
-        # single-chip path.  One shard_map program serves every shard, so
-        # the trace must be shard-uniform: the proxy plan pins the
-        # caps-uniform metadata and sets ``shard_uniform`` so kernel
-        # dispatch consults only capacity shapes (identical on every
-        # shard), never per-shard real counts.  When every shard is
-        # band-full-cover, shards run the same direct-write fast path as
-        # the single chip (capacity-padded dummy supers land in the trash
-        # block); otherwise the generic concat+permute branch runs.
-        import dataclasses as _dc
-
-        from hcspmm_tpu.kernels.block_spmm import spmm_pallas
-
-        proxy = _dc.replace(
-            sharded.plans[0],
-            band_full_cover=all(p.band_full_cover for p in sharded.plans),
-            shard_uniform=True,
-            tiled=False,
-            xp_rows=sharded.xp_rows,
-            num_sparse_rows=sharded.num_sparse_rows,
-            num_spill_rows=sharded.num_spill_rows,
-            num_spill_edges=(max(p.num_spill_edges for p in sharded.plans)
-                             if sharded.num_spill_rows else 0),
-        )
-        return spmm_pallas(arrs, x_view, proxy, compute_dtype)
-    return _spmm_xla(
-        arrs,
-        x_view,
+def _local_spmm(arrs, x_view, sharded: ShardedPlan, compute_dtype,
+                interpret: bool):
+    """Shard-local hybrid SpMM through the same implementation as the
+    single-device path.  One shard_map program serves every shard, so the
+    trace may consult only the shard-uniform capacities (never per-shard
+    real counts): the band population always takes the merge path."""
+    shape = SpmmShape(
+        num_rows=sharded.rows_per_shard,
         num_buckets=sharded.num_buckets,
         num_ell=sharded.num_ell,
-        num_band=sharded.num_band,  # nonzero only in allgather mode
+        num_band=sharded.num_band,
         window_h=sharded.window_h,
-        band_h=sharded.band_h,
         num_sparse_rows=sharded.num_sparse_rows,
         xp_rows=sharded.xp_rows,
-        compute_dtype=compute_dtype,
         num_spill_rows=sharded.num_spill_rows,
     )
+    return spmm_apply(arrs, x_view, shape, compute_dtype, sharded.impl,
+                      interpret)
 
 
 def make_dist_spmm(
@@ -78,9 +50,12 @@ def make_dist_spmm(
     mesh: Mesh,
     axis: str = "x",
     compute_dtype: str = "float32",
+    interpret: bool = False,
 ) -> Callable[[jnp.ndarray], jnp.ndarray]:
     """Returns differentiable ``spmm(x) -> A @ x`` for global padded
-    ``x: [n_padded, D]`` sharded (or shardable) as P(axis)."""
+    ``x: [n_padded, D]`` sharded (or shardable) as P(axis).
+    ``interpret=True`` runs the band kernel through the Pallas
+    interpreter (tests on the CPU)."""
     cd = _dtype(compute_dtype)
     stacked = {k: jnp.asarray(v) for k, v in sharded.stacked.items()}
     s = sharded.num_shards
@@ -90,15 +65,15 @@ def make_dist_spmm(
         def body(arrs, x_local):
             arrs = jax.tree.map(lambda a: a[0], arrs)
             x_full = jax.lax.all_gather(x_local, axis, axis=0, tiled=True)
-            return _local_spmm(arrs, x_full, sharded, cd)
+            return _local_spmm(arrs, x_full, sharded, cd, interpret)
 
     elif sharded.mode == "band_halo":
         hb = sharded.halo_pair
 
         def _strips(x_local):
-            # two fixed-size boundary-strip exchanges over ICI; the local
-            # view [prev strip | own | next strip] stays contiguous so the
-            # banded MXU path runs unchanged on shards
+            # two fixed-size boundary-strip exchanges; the local view
+            # [prev strip | own | next strip] stays contiguous so the
+            # banded path runs unchanged on shards
             prev_strip = jax.lax.ppermute(
                 x_local[-hb:], axis,
                 [(j, (j + 1) % s) for j in range(s)],
@@ -125,13 +100,13 @@ def make_dist_spmm(
                 # [prev | own | next | halo rounds]: strip-relative ids
                 # stay valid, far columns index the appended region
                 x_view = jnp.concatenate(parts, axis=0)
-                return _local_spmm(arrs, x_view, sharded, cd)
+                return _local_spmm(arrs, x_view, sharded, cd, interpret)
         else:
 
             def body(arrs, x_local):
                 arrs = jax.tree.map(lambda a: a[0], arrs)
                 x_view = jnp.concatenate(_strips(x_local), axis=0)
-                return _local_spmm(arrs, x_view, sharded, cd)
+                return _local_spmm(arrs, x_view, sharded, cd, interpret)
 
     elif sharded.mode == "halo":
         send_idx = jnp.asarray(sharded.send_idx)
@@ -148,20 +123,20 @@ def make_dist_spmm(
                 perm = [(j, (j + r + 1) % s) for j in range(s)]
                 parts.append(jax.lax.ppermute(buf, axis, perm))
             x_view = jnp.concatenate(parts, axis=0)  # [rows_per + (S-1)H, D]
-            return _local_spmm(arrs, x_view, sharded, cd)
+            return _local_spmm(arrs, x_view, sharded, cd, interpret)
 
     else:
         raise ValueError(sharded.mode)
 
     if sharded.send_idx is None:
-        mapped = shard_map(
+        mapped = jax.shard_map(
             body, mesh=mesh,
             in_specs=(jax.tree.map(lambda _: P(axis), stacked), P(axis)),
             out_specs=P(axis),
             # pallas_call emits vma-less ShapeDtypeStructs; the varying-
             # across-mesh check cannot see through it.  The pure-XLA impl
             # keeps the check on.
-            check_vma=(sharded.impl != "pallas"),
+            check_vma=(sharded.impl == "xla"),
         )
 
         def run(arrays, x):
@@ -169,11 +144,11 @@ def make_dist_spmm(
 
         arrays = {"stacked": stacked}
     else:
-        mapped = shard_map(
+        mapped = jax.shard_map(
             body, mesh=mesh,
             in_specs=(jax.tree.map(lambda _: P(axis), stacked), P(axis), P(axis)),
             out_specs=P(axis),
-            check_vma=(sharded.impl != "pallas"),
+            check_vma=(sharded.impl == "xla"),
         )
 
         def run(arrays, x):
@@ -215,6 +190,7 @@ class DistHybridSpMM:
         axis: str = "x",
         config=None,
         mode: str = "allgather",
+        interpret: bool = False,
     ):
         from hcspmm_tpu.config import PlanConfig
         from hcspmm_tpu.parallel.partition import build_sharded_plan
@@ -228,7 +204,8 @@ class DistHybridSpMM:
         )
         self.sharding = NamedSharding(mesh, P(axis))
         self._fn, self.arrays = make_dist_spmm(
-            self.sharded, mesh, axis, compute_dtype=config.compute_dtype
+            self.sharded, mesh, axis, compute_dtype=config.compute_dtype,
+            interpret=interpret,
         )
 
     @property

@@ -5,7 +5,7 @@ contiguous row blocks of whole windows; each device owns the matching row
 block of X, Y and Z.  Local windows may reference any global column, so
 each device needs remote X rows ("halo"):
 
-- ``allgather`` mode: replicate X per step (one ``all_gather`` over ICI);
+- ``allgather`` mode: replicate X per step (one ``all_gather``);
   simple, bandwidth N*D per device — the baseline.
 - ``halo`` mode: at preprocessing, compute per (owner, requester) shard
   pair exactly which rows are needed; at run time exchange only those via
@@ -27,6 +27,7 @@ import numpy as np
 
 from hcspmm_tpu.config import PlanConfig
 from hcspmm_tpu.format.plan import ExecutionPlan, PlanCaps, build_plan
+from hcspmm_tpu.ops.spmm import resolve_impl
 
 
 def pad_rows(x: np.ndarray, n_padded: int):
@@ -47,7 +48,6 @@ class ShardedPlan:
     num_buckets: int        # dense width buckets (uniform across shards)
     num_ell: int            # ELL degree buckets (uniform across shards)
     num_band: int           # band-width buckets (allgather mode only)
-    band_h: int
     xp_rows: int            # uniform X padding target across shards
     num_sparse_rows: int    # uniform per-shard count
     mode: str               # 'allgather' | 'halo'
@@ -63,7 +63,7 @@ class ShardedPlan:
     #                     shard pair (index-halo feeding the spill
     #                     population); 0 = pure boundary-strip exchange
     plans: Optional[List[ExecutionPlan]] = None  # host-side, for stats
-    impl: str = "xla"   # shard-local compute: 'xla' | 'pallas'
+    impl: str = "xla"   # shard-local compute: 'xla' | 'triton'
     num_spill_rows: int = 0  # uniform band+spill capacity (0 = absent)
 
     @property
@@ -102,10 +102,6 @@ def build_sharded_plan(
         # uniform stacking caps; pin the ladder for sharded plans
         config = dataclasses.replace(config,
                                      band_widths=(256, 512, 1024, 2048))
-    if config.band_impl != "wide":
-        # tiled pair streams are per-shard-shaped (and square-gated);
-        # sharded plans always use the wide band arrays
-        config = dataclasses.replace(config, band_impl="wide")
     wh = config.window_h
     chunk = wh * num_shards
     n_padded = ((num_nodes + chunk - 1) // chunk) * chunk
@@ -175,17 +171,12 @@ def build_sharded_plan(
         # Fixed-size contiguous halo: after band-friendly (RCM/LOA/pack)
         # ordering, a shard's rows only reference columns within +-Hb of
         # its own range, so the exchange is ONE boundary strip of Hb rows
-        # per neighbour direction (two ppermutes of [Hb, D] over ICI) and
-        # the local X view [prev strip | own | next strip] stays
-        # CONTIGUOUS -- the banded MXU path runs unchanged on shards.
+        # per neighbour direction (two ppermutes of [Hb, D]) and the
+        # local X view [prev strip | own | next strip] stays CONTIGUOUS --
+        # the banded path runs unchanged on shards.
         hb = int(max(config.band_widths)) if config.band_widths else 0
         if hb <= 0:
             raise ValueError("band_halo requires band_widths")
-        if config.impl == "pallas":
-            # derive the strip from the same rounding rule build_plan
-            # applies to pallas band widths (lane-128 minimum), so the
-            # halo always covers the widest bucket the plans can resolve
-            hb = max(128, -(-hb // 128) * 128)
         if hb > rows_per:
             raise ValueError(
                 f"band_halo strip ({hb}) exceeds rows per shard "
@@ -197,7 +188,7 @@ def build_sharded_plan(
         # power-law graphs) degrade to an index-gather halo feeding the
         # plan's band+spill population instead of failing the mode: the
         # extra rows are appended after the strips, so the banded view
-        # stays contiguous and the MXU path runs unchanged.  With
+        # stays contiguous and the band path runs unchanged.  With
         # band_spill='never' the strict contract (raise) is kept.
         far_need: List[List[np.ndarray]] = []
         for i in range(num_shards):
@@ -319,7 +310,6 @@ def build_sharded_plan(
         num_buckets=len(plans[0].bucket_widths),
         num_ell=len(plans[0].ell_widths),
         num_band=len(plans[0].band_widths),
-        band_h=plans[0].band_h,
         xp_rows=max(p.xp_rows for p in plans),
         num_sparse_rows=plans[0].num_sparse_rows,
         num_spill_rows=(plans[0].num_spill_rows
@@ -330,5 +320,5 @@ def build_sharded_plan(
         send_idx=send_idx if mode in ("halo", "band_halo") else None,
         far_pair=far_pair if mode == "band_halo" else 0,
         plans=plans,
-        impl=config.impl,
+        impl=resolve_impl(config.impl),
     )

@@ -2,7 +2,7 @@
 
 Net-new subsystem (SURVEY.md §5: the reference is a single process where
 any CUDA error is fatal and the model is never saved,
-HC-SpMM_main.py:157-166).  TPU-native shape: device state is disposable —
+HC-SpMM_main.py:157-166).  Design: device state is disposable —
 everything needed to continue training is (params, absolute epoch), which
 ``train(checkpoint_every=...)`` persists through utils.checkpoint's atomic
 writer.  Recovery is therefore a host-side supervisor loop: detect the
@@ -11,7 +11,7 @@ remaining epochs.  Two entry points:
 
 - ``run_with_recovery``: in-process — wraps ``train.loop.train`` in a
   retry loop.  Covers failures that surface as Python exceptions
-  (XLA OOM, DMA faults, the injected test faults).
+  (XLA OOM, device faults, the injected test faults).
 - ``supervise``: out-of-process — relaunches the CLI
   (``python -m hcspmm_tpu.train.cli``) as a subprocess, so it also covers
   hard crashes (segfault in a native lib, OOM-killer) that take the whole

@@ -95,7 +95,8 @@ def test_checkpoint_resume_continues_training(tmp_path):
     from conftest import small_graph
 
     rp, ci, nn = small_graph(120, 5)
-    op = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas", band_mode="auto"))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(impl="triton", band_mode="auto"),
+                    interpret=True)
     net = Net(model="gcn", num_features=8, hidden=8, num_classes=3,
               num_layers=2)
     x = np.random.RandomState(0).randn(nn, 8).astype(np.float32)

@@ -127,3 +127,33 @@ def test_supervise_relaunches_cli(tmp_path):
     assert launches[1][i + 1] == "4"
     _, meta = load_pytree(ckpt)
     assert meta["epoch"] == 6
+
+
+def test_supervise_parent_stays_off_the_device(tmp_path):
+    """The supervising parent never starts a JAX backend, so the CLI it
+    launches is the only process that opens the card."""
+    import subprocess
+    import sys
+
+    code = f"""
+import numpy as np
+from jax._src import xla_bridge
+from hcspmm_tpu.train import elastic
+from hcspmm_tpu.utils.checkpoint import save_pytree
+
+ckpt = {str(tmp_path / "ck")!r}
+def runner(argv):
+    save_pytree(ckpt, [{{"weights": np.ones((2, 2), np.float32)}}],
+                {{"epoch": 3}})
+    return 0
+res = elastic.supervise(["--dataset", "example"], checkpoint=ckpt,
+                        total_epochs=3, runner=runner)
+assert res["epochs"] == 3, res
+assert not xla_bridge.backends_are_initialized()
+print("ok")
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -140,8 +140,8 @@ def test_native_analyzer_matches_numpy():
 
 def test_auto_band_width_vmem_cap():
     """Long-tail extent distributions must not resolve giant band widths
-    (regression: a 20k-node graph with global edges resolved W=19200 and
-    blew the 16 MB VMEM scratch budget on hardware)."""
+    (regression: a 20k-node graph with global edges resolved W=19200),
+    and auto widths are multiples of the band kernel's block."""
     from hcspmm_tpu.config import PlanConfig
     from hcspmm_tpu.format.plan import build_plan
     from hcspmm_tpu.graphs import io
@@ -149,8 +149,11 @@ def test_auto_band_width_vmem_cap():
     src, dst, nn = io.synthetic_graph(20000, 8.0, seed=0, span=16,
                                       locality=0.7)
     rp, ci = io.to_csr(src, dst, nn)
-    plan = build_plan(rp, ci, nn, PlanConfig(impl="pallas", band_h=256))
+    plan = build_plan(rp, ci, nn, PlanConfig(band_h=256))
     assert all(w <= 2048 for w in plan.band_widths), plan.band_widths
+    from hcspmm_tpu.config import BAND_BLOCK
+
+    assert all(w % BAND_BLOCK == 0 for w in plan.band_widths)
 
 
 def test_native_band_robust_and_place_match_numpy():

@@ -1,5 +1,5 @@
 """Config/graph fuzz: random graphs x random plan configs vs the dense
-oracle (interpret mode).  Catches population-routing edge cases the
+oracle (the band kernel through the Pallas interpreter).  Catches population-routing edge cases the
 hand-written shape tests miss."""
 
 import jax
@@ -34,64 +34,50 @@ def test_fuzz_random_config_matches_oracle(seed):
     bh = wh * int(rng.randint(1, 5))
     widths_pool = [(128,), (128, 256), (256,), "auto"]
     cfg = PlanConfig(
-        impl=rng.choice(["pallas", "xla"]),
-        loi_mode=rng.choice(["intended", "degenerate", "calibrated",
-                             "all_dense", "all_sparse"]),
+        impl=rng.choice(["triton", "xla"]),
+        loi_mode=rng.choice(["intended", "degenerate", "all_dense",
+                             "all_sparse"]),
         band_mode=rng.choice(["auto", "always", "never"]),
         band_h=bh,
         band_widths=widths_pool[rng.randint(len(widths_pool))],
-        band_impl=rng.choice(["wide", "tiled"]),
+        band_spill=rng.choice(["auto", "never"]),
         bucket_widths=(8, 32, 128),
         ell_widths=(4, 16, 64),
         compute_dtype="float32",
     )
     dim = int(rng.randint(1, 70))
     x = rng.randn(nn, dim).astype(np.float32)
-    op = HybridSpMM(rp, ci, nn, cfg)
+    op = HybridSpMM(rp, ci, nn, cfg, interpret=cfg.impl == "triton")
     z = np.asarray(jax.jit(op)(x))
     zref = spmm_reference_dense(rp, ci, nn, x)
     scale = np.abs(zref).max() + 1e-9
     err = np.abs(z - zref).max() / scale
     assert err < 5e-4, (err, cfg)
-    if getattr(op, "supports_padded", False):
-        import jax.numpy as jnp
-
-        xp = op.pad_input(jnp.asarray(x))
-        zp = np.asarray(op.unpad_output(
-            jax.jit(lambda a, v: op.apply_padded(a, v))(op.arrays, xp), dim))
-        assert np.abs(zp - zref).max() / scale < 5e-4
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_fuzz_tband_spill_chain_tiny_caps(seed):
-    """Round-5 spill chain fuzz: random power-law graphs under FORCED
-    tiny caps so the mxgather T1 + segmented T2 + hub-split machinery
-    all trigger at toy scale, vs the dense oracle (interpret mode)."""
+def test_fuzz_band_spill_kernel_path(seed):
+    """Spill fuzz: random long-span graphs under a narrow band so much
+    of the mass spills, random dims and dtypes, kernel path vs the dense
+    oracle."""
     rng = np.random.RandomState(100 + seed)
     n = int(rng.randint(600, 1800))
     src, dst, nn = io.synthetic_graph(
         n, float(rng.uniform(4, 10)), seed=seed,
         span=int(rng.randint(300, max(301, n))))
     rp, ci = io.to_csr(src, dst, nn)
-    cap_slots = int(rng.choice([32, 48, 96]))
-    hub_slots = int(rng.choice([0, 32, 64]))
+    dtype = str(rng.choice(["float32", "bfloat16"]))
     cfg = PlanConfig(
-        impl="pallas", band_impl="tband", band_mode="auto",
-        band_h=128, band_widths=(128,),
-        ts_table_mb=1e-3, ts_span=256, ts_k=int(rng.choice([16, 32])),
-        ts2_table_mb=cap_slots * 64 / 1e6,
-        spill_hub_mb=hub_slots * 64 / 1e6,
-        spill_hub_min_cov=0.01, spill_hub_min_reuse=0.0,
-        compute_dtype="float32",
+        impl="triton", band_mode=str(rng.choice(["auto", "always"])),
+        band_h=int(rng.choice([64, 128])),
+        band_widths=(int(rng.choice([64, 128, 192])),),
+        compute_dtype=dtype,
     )
     dim = int(rng.randint(3, 40))
     x = rng.randn(nn, dim).astype(np.float32)
-    op = HybridSpMM(rp, ci, nn, cfg)
+    op = HybridSpMM(rp, ci, nn, cfg, interpret=True)
     assert op.plan.spill_nnz > 0
     z = np.asarray(jax.jit(op)(x))
     zref = spmm_reference_dense(rp, ci, nn, x)
-    scale = np.abs(zref).max() + 1e-9
-    err = np.abs(z - zref).max() / scale
-    assert err < 5e-4, (err, cap_slots, hub_slots,
-                        op.plan.hub_lo is not None,
-                        bool(getattr(op.plan, "ts2_segs", None)))
+    err = np.linalg.norm(z - zref) / np.linalg.norm(zref)
+    assert err < (1e-5 if dtype == "float32" else 1e-2), (err, cfg)

@@ -130,7 +130,7 @@ def test_dataset_from_file_end_to_end(tmp_path):
 
 
 def test_real_digits_knn_dataset_and_training():
-    """Real-dataset path end-to-end (VERDICT r3 next #6): sklearn digits
+    """Real-dataset path end-to-end: sklearn digits
     (real features + labels) under the k-NN graph, through the full plan
     -> SpMM -> 2-layer GCN training on CPU."""
     import numpy as np
@@ -146,7 +146,7 @@ def test_real_digits_knn_dataset_and_training():
     assert ds.x.shape == (1797, 64)
     assert not np.all(ds.y == 1)  # REAL labels, not the all-ones fixture
     op = HybridSpMM(ds.row_pointers, ds.column_index, ds.num_nodes,
-                    PlanConfig(impl="pallas"))
+                    PlanConfig(impl="triton"), interpret=True)
     net = Net(model="gcn", num_features=64, hidden=16, num_classes=10,
               num_layers=2)
     res = train(net, op, ds.x, ds.y, epochs=3, warmup_epochs=1,
@@ -177,7 +177,8 @@ def test_real_edge_list_file_roundtrip(tmp_path):
         from hcspmm_tpu.ops.spmm import HybridSpMM, spmm_reference_dense
         from hcspmm_tpu.config import PlanConfig
 
-        op = HybridSpMM(rp, ci, n, PlanConfig(impl="pallas"))
+        op = HybridSpMM(rp, ci, n, PlanConfig(impl="triton"),
+                        interpret=True)
         x = np.random.RandomState(0).randn(n, 8).astype(np.float32)
         import jax.numpy as jnp
 

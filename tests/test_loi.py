@@ -82,22 +82,26 @@ def test_calibrate_with_fake_timers():
     assert (pred == labels).mean() > 0.85
 
 
-def test_calibrated_mode_uses_tpu_coefficients():
-    """loi_mode='calibrated' with stock config must pick up the
-    hardware-refit coefficients (config.LOI_TPU_V5E), which route far
-    more windows to the MXU path than the GPU-fitted defaults."""
+def test_explicit_coefficients_override_defaults():
+    """Refit coefficients passed explicitly (PlanConfig.loi /
+    analyze_windows(loi_coeffs=...)) are honored verbatim; None means the
+    reference's values."""
     import numpy as np
 
-    from hcspmm_tpu.config import LOI_TPU_V5E, LOICoefficients
+    from hcspmm_tpu.config import LOICoefficients
     from hcspmm_tpu.format.windows import analyze_windows
     from hcspmm_tpu.graphs import io
 
     src, dst, nn = io.synthetic_graph(600, 8, seed=1, span=64)
     rp, ci = io.to_csr(src, dst, nn)
-    wa_cal = analyze_windows(rp, ci, nn, loi_mode="calibrated")
-    wa_custom = analyze_windows(rp, ci, nn, loi_mode="calibrated",
-                                loi_coeffs=LOI_TPU_V5E)
-    np.testing.assert_array_equal(wa_cal.hybrid_type, wa_custom.hybrid_type)
-    # the GPU-fitted 'intended' rule routes (weakly) fewer windows dense
-    wa_int = analyze_windows(rp, ci, nn, loi_mode="intended")
-    assert wa_cal.hybrid_type.sum() >= wa_int.hybrid_type.sum()
+    wa_none = analyze_windows(rp, ci, nn, loi_mode="intended")
+    wa_ref = analyze_windows(rp, ci, nn, loi_mode="intended",
+                             loi_coeffs=LOICoefficients())
+    np.testing.assert_array_equal(wa_none.hybrid_type, wa_ref.hybrid_type)
+    # a refit that favours the dense path everywhere it may
+    dense_fit = LOICoefficients(w_cols=0.0, w_density=0.0, bias=-1.0,
+                                max_cols=1 << 20)
+    wa_fit = analyze_windows(rp, ci, nn, loi_mode="intended",
+                             loi_coeffs=dense_fit)
+    assert wa_fit.hybrid_type.sum() > wa_ref.hybrid_type.sum()
+    assert wa_fit.hybrid_type.sum() == (wa_fit.edge_counts > 0).sum()

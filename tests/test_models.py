@@ -146,9 +146,9 @@ def test_train_resume_roundtrip(tmp_path):
     assert np.isfinite(res2["final_loss"])
 
 
-def test_fused_layer_ops_match_composed():
-    """gcn_apply / gin_apply (fused kernels + fused backward) must match
-    the composed spmm+matmul dataflow in values AND gradients."""
+def test_layer_cores_match_composed():
+    """gcn_apply / gin_apply must match the composed spmm+matmul dataflow
+    in values AND gradients, on both implementations."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -165,9 +165,10 @@ def test_fused_layer_ops_match_composed():
     x = jnp.asarray(rng.randn(nn, 16).astype(np.float32))
     w = jnp.asarray(rng.randn(16, 8).astype(np.float32))
 
-    for impl in ("xla", "pallas"):
+    for impl in ("xla", "triton"):
         op = HybridSpMM(rp, ci, nn, PlanConfig(
-            band_mode="always", band_h=64, band_widths=(256,), impl=impl))
+            band_mode="always", band_h=64, band_widths=(256,), impl=impl),
+            interpret=impl == "triton")
 
         def comp_gcn(x_, w_):
             return op.apply(op.arrays, jnp.dot(x_, w_))
@@ -191,9 +192,10 @@ def test_fused_layer_ops_match_composed():
                                            rtol=2e-3, atol=2e-3)
 
 
-def test_padded_training_matches_unpadded():
-    """Whole-network padded layout (train/loop): same losses as the
-    row layout (dropout=0 so randomness shapes don't diverge)."""
+def test_direct_write_training_matches_merge_path():
+    """Whole network on the kernel's direct-write band path (train/loop):
+    same losses as the merge-only plan without a band population
+    (dropout=0 so randomness shapes don't diverge)."""
     from hcspmm_tpu.graphs import io
     from hcspmm_tpu.format import reorder as _ro
 
@@ -201,12 +203,13 @@ def test_padded_training_matches_unpadded():
     rp, ci = io.to_csr(src, dst, nn)
     perm = _ro.rcm_reorder(rp, ci, nn)
     rp, ci = _ro.apply_permutation(rp, ci, nn, perm)
-    cfg = PlanConfig(impl="pallas", band_mode="always", band_h=32,
+    cfg = PlanConfig(impl="triton", band_mode="always", band_h=32,
                      band_widths=(128,))
-    op_p = HybridSpMM(rp, ci, nn, cfg)
-    assert op_p.supports_padded
-    op_u = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas",
-                                             band_mode="never"))
+    op_p = HybridSpMM(rp, ci, nn, cfg, interpret=True)
+    assert op_p.plan.direct_bucket == 0
+    op_u = HybridSpMM(rp, ci, nn, PlanConfig(impl="triton",
+                                             band_mode="never"),
+                      interpret=True)
     x = np.random.RandomState(0).randn(nn, 12).astype(np.float32)
     y = np.ones(nn, dtype=np.int32)
     for model in ("gcn", "gin"):
@@ -238,7 +241,7 @@ def test_sage_forward_matches_dense():
                                rtol=2e-4, atol=2e-4)
 
 
-def test_sage_padded_training_matches_unpadded():
+def test_sage_direct_write_training_matches_merge_path():
     from hcspmm_tpu.graphs import io
     from hcspmm_tpu.format import reorder as _ro
 
@@ -246,12 +249,13 @@ def test_sage_padded_training_matches_unpadded():
     rp, ci = io.to_csr(src, dst, nn)
     perm = _ro.rcm_reorder(rp, ci, nn)
     rp, ci = _ro.apply_permutation(rp, ci, nn, perm)
-    cfg = PlanConfig(impl="pallas", band_mode="always", band_h=32,
+    cfg = PlanConfig(impl="triton", band_mode="always", band_h=32,
                      band_widths=(128,))
-    op_p = HybridSpMM(rp, ci, nn, cfg)
-    assert op_p.supports_padded
-    op_u = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas",
-                                             band_mode="never"))
+    op_p = HybridSpMM(rp, ci, nn, cfg, interpret=True)
+    assert op_p.plan.direct_bucket == 0
+    op_u = HybridSpMM(rp, ci, nn, PlanConfig(impl="triton",
+                                             band_mode="never"),
+                      interpret=True)
     x = np.random.RandomState(0).randn(nn, 12).astype(np.float32)
     y = np.ones(nn, dtype=np.int32)
     net = Net(model="sage", num_features=12, hidden=8, num_classes=5,

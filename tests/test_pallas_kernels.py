@@ -1,25 +1,33 @@
-"""Pallas kernel path vs dense oracle (interpret mode on the CPU mesh).
+"""Triton band kernel path (impl='triton') vs dense oracle.
 
-Mirrors the adversarial-shape matrix of test_spmm for impl='pallas'
-(SURVEY.md §4.1).  On CPU the kernels run through the Pallas interpreter,
-which also catches OOB indexing (SURVEY.md §5 race-detection plan).
+Mirrors the adversarial-shape matrix of test_spmm for the kernel path
+(SURVEY.md §4.1).  On the CPU the kernel runs through the Pallas
+interpreter (``interpret=True``), which also catches out-of-bounds
+indexing (SURVEY.md §5 race-detection plan).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from hcspmm_tpu.config import PlanConfig
 from hcspmm_tpu.graphs import io
+from hcspmm_tpu.kernels.band import _block, band_spmm
 from hcspmm_tpu.ops.spmm import HybridSpMM, spmm_reference_dense
 
 from conftest import small_graph
 
 
-def check(rp, ci, nn, dim, cfg, tol=1e-5, seed=0, grad=False):
+def kop(rp, ci, nn, cfg, **kw):
+    """HybridSpMM on the kernel path, through the Pallas interpreter."""
+    return HybridSpMM(rp, ci, nn, cfg, interpret=True, **kw)
+
+
+def check(rp, ci, nn, dim, cfg, tol=1e-5, seed=0):
     rng = np.random.RandomState(seed)
     x = rng.randn(nn, dim).astype(np.float32)
-    op = HybridSpMM(rp, ci, nn, cfg)
+    op = kop(rp, ci, nn, cfg)
     z = np.asarray(jax.jit(op)(x))
     zref = spmm_reference_dense(rp, ci, nn, x)
     scale = np.abs(zref).max() + 1e-9
@@ -32,27 +40,26 @@ def check(rp, ci, nn, dim, cfg, tol=1e-5, seed=0, grad=False):
 @pytest.mark.parametrize("dim", [7, 32, 96])
 def test_pallas_modes_dims(mode, dim):
     rp, ci, nn = small_graph(100, 6)
-    check(rp, ci, nn, dim, PlanConfig(loi_mode=mode, impl="pallas"))
+    check(rp, ci, nn, dim, PlanConfig(loi_mode=mode, impl="triton"))
 
 
 def test_pallas_unaligned_nodes_and_wide_windows():
     rp, ci, nn = small_graph(101, 12, span=64)
     check(rp, ci, nn, 33,
-          PlanConfig(loi_mode="all_dense", bucket_widths=(8, 16), impl="pallas"))
+          PlanConfig(loi_mode="all_dense", bucket_widths=(8, 16),
+                     impl="triton"))
 
 
 def test_pallas_bf16_tolerance():
     rp, ci, nn = small_graph(100, 6)
     check(rp, ci, nn, 32,
-          PlanConfig(compute_dtype="bfloat16", impl="pallas"), tol=2e-2)
+          PlanConfig(compute_dtype="bfloat16", impl="triton"), tol=2e-2)
 
 
 def test_pallas_gradient_matches_xla():
-    import jax.numpy as jnp
-
     rp, ci, nn = small_graph(80, 5)
     x = np.random.RandomState(3).randn(nn, 16).astype(np.float32)
-    op_p = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas"))
+    op_p = kop(rp, ci, nn, PlanConfig(impl="triton"))
     op_x = HybridSpMM(rp, ci, nn, PlanConfig(impl="xla"))
 
     def loss(op, x):
@@ -66,229 +73,186 @@ def test_pallas_gradient_matches_xla():
 
 @pytest.mark.parametrize("n,deg,dim", [
     (17, 2, 1),        # tiny graph, dim 1
-    (100, 3, 130),     # dim just over one lane tile
-    (100, 3, 257),     # dim over two lane tiles
+    (100, 3, 130),     # dim just over a power of two
+    (100, 3, 257),     # dim over two powers of two
     (3, 1, 8),         # n smaller than every block size
 ])
 def test_pallas_adversarial_shapes(n, deg, dim):
     rp, ci, nn = small_graph(n, deg, span=max(4, n // 4))
-    check(rp, ci, nn, dim, PlanConfig(impl="pallas"), tol=1e-4)
+    check(rp, ci, nn, dim, PlanConfig(impl="triton"), tol=1e-4)
 
 
 def test_pallas_single_node_self_loop():
-    import numpy as np
-
     rp = np.array([0, 1], np.int32)
     ci = np.array([0], np.int32)
-    check(rp, ci, 1, 5, PlanConfig(impl="pallas"), tol=1e-5)
+    check(rp, ci, 1, 5, PlanConfig(impl="triton"), tol=1e-5)
 
 
 def test_pallas_empty_graph():
-    import numpy as np
-
     rp = np.zeros(33, np.int32)
     ci = np.zeros(0, np.int32)
     x = np.random.RandomState(0).randn(32, 9).astype(np.float32)
-    import jax
-
-    from hcspmm_tpu.ops.spmm import HybridSpMM
-
-    op = HybridSpMM(rp, ci, 32, PlanConfig(impl="pallas"))
+    op = kop(rp, ci, 32, PlanConfig(impl="triton"))
     z = np.asarray(jax.jit(op)(x))
     assert (z == 0).all()
 
 
 def test_pallas_band_smaller_than_graph_pad():
-    # graph smaller than the largest band bucket: xp row padding must cover
+    # graph smaller than the largest band bucket: X reads past the last
+    # row must come back as zeros (kernel masks; XLA pads to xp_rows)
     rp, ci, nn = small_graph(40, 4, span=8)
     check(rp, ci, nn, 16,
-          PlanConfig(impl="pallas", band_mode="always",
+          PlanConfig(impl="triton", band_mode="always",
                      band_h=32, band_widths=(64, 2048)), tol=1e-5)
 
 
-class TestPaddedLayout:
-    """Closed padded layout [M, dp] -> [M, dp] (zero glue passes)."""
+def _block_graph(n=256, deg=4, seed=3, block=32):
+    src, dst, nn = io.synthetic_blocks(n, deg, block, seed=seed)
+    rp, ci = io.to_csr(src, dst, nn)
+    from hcspmm_tpu.format import reorder as _ro
+    perm = _ro.rcm_reorder(rp, ci, nn)
+    rp, ci = _ro.apply_permutation(rp, ci, nn, perm)
+    return rp, ci, nn
 
-    def _op(self, n=256, deg=4, dim=24, **cfg):
-        src, dst, nn = io.synthetic_blocks(n, deg, 32, seed=3)
-        rp, ci = io.to_csr(src, dst, nn)
-        from hcspmm_tpu.format import reorder as _ro
-        perm = _ro.rcm_reorder(rp, ci, nn)
-        rp, ci = _ro.apply_permutation(rp, ci, nn, perm)
-        base = dict(impl="pallas", band_mode="always", band_h=32,
+
+class TestDirectWrite:
+    """Full single-bucket cover: the kernel writes every superwindow's
+    output rows in place (no concat, no merge permutation)."""
+
+    def _op(self, dim=24, **cfg):
+        rp, ci, nn = _block_graph()
+        base = dict(impl="triton", band_mode="always", band_h=32,
                     band_widths=(128,))
         base.update(cfg)
-        op = HybridSpMM(rp, ci, nn, PlanConfig(**base))
+        op = kop(rp, ci, nn, PlanConfig(**base))
         x = np.random.RandomState(1).randn(nn, dim).astype(np.float32)
         return op, rp, ci, nn, x
 
-    def test_padded_matches_oracle(self):
+    def test_direct_matches_oracle(self):
         op, rp, ci, nn, x = self._op()
-        assert op.supports_padded, "plan should take the padded fast path"
-        xp = op.pad_input(jnp_asarray(x))
-        out = jax.jit(lambda a, v: op.apply_padded(a, v))(op.arrays, xp)
-        z = np.asarray(op.unpad_output(out, x.shape[1]))
+        assert op.plan.direct_bucket == 0, "plan should take the direct write"
+        out = jax.jit(lambda a, v: op.apply(a, v))(op.arrays, jnp.asarray(x))
         zref = spmm_reference_dense(rp, ci, nn, x)
         scale = np.abs(zref).max() + 1e-9
-        assert np.abs(z - zref).max() / scale < 1e-5
-        # closure invariant: rows >= n exactly zero -> chaining is legal
-        assert (np.asarray(out)[nn:] == 0).all()
-        assert (np.asarray(out)[:, x.shape[1]:] == 0).all()
+        assert out.shape == (nn, x.shape[1])
+        assert np.abs(np.asarray(out) - zref).max() / scale < 1e-5
 
-    def test_padded_chain_matches_double_apply(self):
+    def test_direct_chain_matches_double_apply(self):
         op, rp, ci, nn, x = self._op()
-        xp = op.pad_input(jnp_asarray(x))
-        out2 = jax.jit(lambda a, v: op.apply_padded(a, op.apply_padded(a, v))
-                       )(op.arrays, xp)
-        z2 = np.asarray(op.unpad_output(out2, x.shape[1]))
+        out2 = jax.jit(lambda a, v: op.apply(a, op.apply(a, v)))(
+            op.arrays, jnp.asarray(x))
         zref = spmm_reference_dense(
             rp, ci, nn, spmm_reference_dense(rp, ci, nn, x))
         scale = np.abs(zref).max() + 1e-9
-        assert np.abs(z2 - zref).max() / scale < 1e-5
+        assert np.abs(np.asarray(out2) - zref).max() / scale < 1e-5
 
-    def test_padded_gradient_matches_unpadded(self):
-        import jax.numpy as jnp
-
+    def test_direct_gradient_matches_xla(self):
         op, rp, ci, nn, x = self._op()
+        op_x = HybridSpMM(rp, ci, nn, op.config.__class__(
+            **{**op.config.__dict__, "impl": "xla"}))
 
-        def loss_p(arrays, x):
-            xp = op.pad_input(x)
-            return jnp.sum(op.unpad_output(op.apply_padded(arrays, xp),
-                                           x.shape[1]) ** 2)
+        def grad(o):
+            return jax.jit(jax.grad(
+                lambda a, v: jnp.sum(o.apply(a, v) ** 2), argnums=1))(
+                o.arrays, jnp.asarray(x))
 
-        def loss_u(arrays, x):
-            return jnp.sum(op.apply(arrays, x) ** 2)
-
-        xj = jnp_asarray(x)
-        gp = jax.jit(jax.grad(loss_p, argnums=1))(op.arrays, xj)
-        gu = jax.jit(jax.grad(loss_u, argnums=1))(op.arrays, xj)
-        np.testing.assert_allclose(np.asarray(gp), np.asarray(gu),
+        np.testing.assert_allclose(np.asarray(grad(op)),
+                                   np.asarray(grad(op_x)),
                                    rtol=1e-5, atol=1e-5)
 
-    def test_padded_fallback_when_unsupported(self):
-        # multi-bucket non-full-cover plan: apply_padded must still be
-        # correct through the fallback
+    def test_merge_path_when_not_full_cover(self):
+        # band off: no direct bucket, the merge path assembles the rows
         op, rp, ci, nn, x = self._op(band_mode="never")
-        assert not op.supports_padded
-        xp = op.pad_input(jnp_asarray(x))
-        out = jax.jit(lambda a, v: op.apply_padded(a, v))(op.arrays, xp)
-        z = np.asarray(op.unpad_output(out, x.shape[1]))
+        assert op.plan.direct_bucket == -1
+        z = np.asarray(jax.jit(op)(jnp.asarray(x)))
         zref = spmm_reference_dense(rp, ci, nn, x)
         scale = np.abs(zref).max() + 1e-9
         assert np.abs(z - zref).max() / scale < 1e-4
 
-    def test_padded_normalized(self):
+    def test_direct_normalized(self):
         op, rp, ci, nn, x = self._op()
-        opn = HybridSpMM(rp, ci, nn, op.config, normalize=True)
-        xp = opn.pad_input(jnp_asarray(x))
-        out = jax.jit(lambda a, v: opn.apply_padded(a, v))(opn.arrays, xp)
-        z = np.asarray(opn.unpad_output(out, x.shape[1]))
-        zu = np.asarray(jax.jit(lambda a, v: opn.apply(a, v))(
-            opn.arrays, jnp_asarray(x)))
-        np.testing.assert_allclose(z, zu, rtol=1e-5, atol=1e-5)
+        opn = kop(rp, ci, nn, op.config, normalize=True)
+        z = np.asarray(jax.jit(lambda a, v: opn.apply(a, v))(
+            opn.arrays, jnp.asarray(x)))
+        deg = np.maximum(np.diff(rp), 1).astype(np.float64)
+        inv = 1.0 / np.sqrt(deg)
+        zref = inv[:, None] * spmm_reference_dense(rp, ci, nn,
+                                                   x * inv[:, None])
+        np.testing.assert_allclose(z, zref, rtol=1e-5, atol=1e-5)
 
 
-def jnp_asarray(x):
-    import jax.numpy as jnp
+def _band_numpy(starts, sw, a, x, num_blocks):
+    sb, bh, w = a.shape
+    xp = np.concatenate([np.asarray(x, np.float64),
+                         np.zeros((w, x.shape[1]))])
+    out = np.zeros((num_blocks * bh, x.shape[1]))
+    for i in range(sb):
+        out[sw[i] * bh:(sw[i] + 1) * bh] = (
+            a[i].astype(np.float64) @ xp[starts[i]:starts[i] + w])
+    return out
 
-    return jnp.asarray(x)
 
+class TestBandKernel:
+    """The kernel alone against a NumPy loop: shapes, block choice,
+    row masking, column masking, bit-packed A."""
 
-class TestTiledBand:
-    """band_impl='tiled': flat (super, X-tile) pairs + ring-cached X."""
+    @pytest.mark.parametrize("bh,w,d,packed", [
+        (64, 128, 32, False), (32, 192, 96, False),
+        (128, 64, 20, True), (16, 16, 1, False),
+    ])
+    def test_band_kernel_matches_numpy(self, bh, w, d, packed):
+        rng = np.random.RandomState(bh + w + d)
+        sb, r = 4, 300
+        a = (rng.rand(sb, bh, w) < 0.1).astype(np.int8)
+        starts = rng.randint(0, r, sb).astype(np.int32)
+        sw = rng.permutation(sb).astype(np.int32)
+        x = rng.randn(r, d).astype(np.float32)
+        av = (np.packbits(a.view(np.uint8), axis=1, bitorder="little")
+              if packed else a)
+        out = band_spmm(jnp.asarray(starts), jnp.asarray(sw),
+                        jnp.asarray(av), jnp.asarray(x), sb, jnp.float32,
+                        interpret=True)
+        np.testing.assert_allclose(np.asarray(out),
+                                   _band_numpy(starts, sw, a, x, sb),
+                                   rtol=1e-5, atol=1e-5)
 
-    def _op(self, n=512, deg=4, dim=24, slots=4, **cfg):
-        src, dst, nn = io.synthetic_blocks(n, deg, 48, seed=5)
-        rp, ci = io.to_csr(src, dst, nn)
-        from hcspmm_tpu.format import reorder as _ro
-        perm = _ro.rcm_reorder(rp, ci, nn)
-        rp, ci = _ro.apply_permutation(rp, ci, nn, perm)
-        base = dict(impl="pallas", band_mode="always", band_h=128,
-                    band_widths=(512,), band_impl="tiled",
-                    band_tile_slots=slots)
-        base.update(cfg)
-        op = HybridSpMM(rp, ci, nn, PlanConfig(**base))
-        x = np.random.RandomState(1).randn(nn, dim).astype(np.float32)
-        return op, rp, ci, nn, x
+    def test_band_kernel_rows_past_x_read_zero(self):
+        rng = np.random.RandomState(0)
+        a = np.ones((1, 16, 64), np.int8)
+        x = rng.randn(40, 8).astype(np.float32)
+        out = band_spmm(jnp.asarray([30], jnp.int32),
+                        jnp.asarray([0], jnp.int32), jnp.asarray(a),
+                        jnp.asarray(x), 1, jnp.float32, interpret=True)
+        np.testing.assert_allclose(np.asarray(out)[0], x[30:].sum(0),
+                                   rtol=1e-5)
 
-    def _check(self, op, rp, ci, nn, x, tol=1e-5):
-        xp = op.pad_input(jnp_asarray(x))
-        out = jax.jit(lambda a, v: op.apply_padded(a, v))(op.arrays, xp)
-        z = np.asarray(op.unpad_output(out, x.shape[1]))
-        zref = spmm_reference_dense(rp, ci, nn, x)
-        scale = np.abs(zref).max() + 1e-9
-        assert np.abs(z - zref).max() / scale < tol
-        assert (np.asarray(out)[nn:] == 0).all()
+    def test_band_kernel_writes_named_blocks_only(self):
+        # sw = arange(Sb) writes entry i's rows at i*bh (merge layout)
+        rng = np.random.RandomState(1)
+        a = (rng.rand(3, 32, 32) < 0.3).astype(np.int8)
+        starts = np.array([0, 5, 9], np.int32)
+        x = rng.randn(64, 16).astype(np.float32)
+        sw = np.arange(3, dtype=np.int32)
+        out = band_spmm(jnp.asarray(starts), jnp.asarray(sw), jnp.asarray(a),
+                        jnp.asarray(x).astype(jnp.bfloat16), 3, jnp.float32,
+                        interpret=True)
+        xb = np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
+                        .astype(jnp.float32))
+        np.testing.assert_allclose(np.asarray(out),
+                                   _band_numpy(starts, sw, a, xb, 3),
+                                   rtol=1e-5, atol=1e-5)
 
-    @pytest.mark.parametrize("slots", [2, 4, 16])
-    def test_tiled_matches_oracle(self, slots):
-        # slots=2 forces evictions + late (conflict) fetches through the
-        # simulated schedule; 16 is the production default
-        op, rp, ci, nn, x = self._op(slots=slots)
-        assert op.plan.tiled
-        assert op.supports_padded
-        self._check(op, rp, ci, nn, x)
-
-    def test_tiled_unpadded_wrapper(self):
-        op, rp, ci, nn, x = self._op()
-        z = np.asarray(jax.jit(op)(x))
-        zref = spmm_reference_dense(rp, ci, nn, x)
-        scale = np.abs(zref).max() + 1e-9
-        assert np.abs(z - zref).max() / scale < 1e-5
-
-    def test_tiled_gradient(self):
-        import jax.numpy as jnp
-
-        op, rp, ci, nn, x = self._op()
-        op_u = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas",
-                                                 band_mode="never"))
-
-        def loss(o):
-            def f(arrays, x):
-                return jnp.sum(o.apply(arrays, x) ** 2)
-            return jax.jit(jax.grad(f, argnums=1))(o.arrays, jnp_asarray(x))
-
-        np.testing.assert_allclose(np.asarray(loss(op)),
-                                   np.asarray(loss(op_u)),
-                                   rtol=1e-4, atol=1e-4)
-
-    def test_tiled_fallback_unaligned_band_h(self):
-        # band_h not a multiple of 128 -> wide plan, still correct
-        op, rp, ci, nn, x = self._op(band_h=32, band_widths=(256,))
-        assert not op.plan.tiled
-        z = np.asarray(jax.jit(op)(x))
-        zref = spmm_reference_dense(rp, ci, nn, x)
-        scale = np.abs(zref).max() + 1e-9
-        assert np.abs(z - zref).max() / scale < 1e-5
-
-    def test_tiled_with_empty_supers(self):
-        # graph with an empty tail window range: dummy pairs must still
-        # write zero output blocks
-        rp = np.zeros(400 + 1, np.int32)
-        rp[1:200] = np.arange(1, 200)
-        rp[200:] = 199
-        ci = (np.arange(199) % 150).astype(np.int32)
-        op = HybridSpMM(rp, ci, 400, PlanConfig(
-            impl="pallas", band_mode="always", band_h=128,
-            band_widths=(256,), band_impl="tiled", band_tile_slots=4))
-        if not op.plan.tiled:
-            pytest.skip("plan not tiled on this shape")
-        x = np.random.RandomState(0).randn(400, 8).astype(np.float32)
-        xp = op.pad_input(jnp_asarray(x))
-        out = jax.jit(lambda a, v: op.apply_padded(a, v))(op.arrays, xp)
-        z = np.asarray(op.unpad_output(out, 8))
-        zref = spmm_reference_dense(rp, ci, 400, x)
-        scale = np.abs(zref).max() + 1e-9
-        assert np.abs(z - zref).max() / scale < 1e-5
+    def test_band_block_choice(self):
+        assert _block(576) == 64 and _block(256) == 64
+        assert _block(96) == 32 and _block(48) == 16
+        with pytest.raises(ValueError):
+            _block(24)
 
 
 def test_rectangular_band_full_cover_shard_plan():
-    """Row-block shard operand (num_cols > num_nodes) through the pallas
+    """Row-block shard operand (num_cols > num_nodes) through the kernel's
     full-cover band path: row counts must come from the plan, not from
-    the column-space X operand (regression: num_sw/slice were derived
-    from x.shape[0])."""
-    import jax.numpy as jnp
-
+    the column-space X operand."""
     from hcspmm_tpu.format.plan import build_plan
     from hcspmm_tpu.ops.spmm import make_spmm
 
@@ -300,50 +264,40 @@ def test_rectangular_band_full_cover_shard_plan():
     ci = np.sort(
         (base[:, None] + rng.randint(0, 24, (n_rows, 4))) % n_cols, axis=1
     ).astype(np.int32).reshape(-1)
-    cfg = PlanConfig(impl="pallas", band_mode="always", band_h=32,
+    cfg = PlanConfig(impl="triton", band_mode="always", band_h=32,
                      band_widths=(256,))
     plan = build_plan(rp, ci, n_rows, cfg, num_cols=n_cols)
     assert plan.band_full_cover and plan.num_cols != plan.num_nodes
-    fn = make_spmm(plan, plan, compute_dtype="float32", impl="pallas")
-    arrs = {k: jnp.asarray(v)
-            for k, v in plan.device_arrays(dense_band=True).items()}
+    fn = make_spmm(plan, plan, compute_dtype="float32", impl="triton",
+                   interpret=True)
+    arrs = {k: jnp.asarray(v) for k, v in plan.device_arrays().items()}
     x = rng.randn(n_cols, d).astype(np.float32)
     z = np.asarray(jax.jit(fn)(arrs, arrs, jnp.asarray(x)))
     assert z.shape == (n_rows, d)
     a = np.zeros((n_rows, n_cols))
     for r in range(n_rows):
         a[r, ci[rp[r]: rp[r + 1]]] = 1  # binary adjacency: dups collapse
-    zref = a @ x
-    np.testing.assert_allclose(z, zref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(z, a @ x, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("impl", ["wide", "tiled"])
-def test_padded_wide_dim_over_one_lane_tile(impl):
-    """dp = 256 (dim > 128) through the padded band kernels."""
-    src, dst, nn = io.synthetic_blocks(256, 4, 32, seed=3)
-    rp, ci = io.to_csr(src, dst, nn)
-    from hcspmm_tpu.format import reorder as _ro
-    perm = _ro.rcm_reorder(rp, ci, nn)
-    rp, ci = _ro.apply_permutation(rp, ci, nn, perm)
-    bh = 128 if impl == "tiled" else 32
-    op = HybridSpMM(rp, ci, nn, PlanConfig(
-        impl="pallas", band_mode="always", band_h=bh, band_widths=(256,),
-        band_impl=impl, band_tile_slots=4))
-    if impl == "tiled" and not op.plan.tiled:
-        pytest.skip("plan not tiled on this shape")
-    x = np.random.RandomState(1).randn(nn, 130).astype(np.float32)
-    xp = op.pad_input(jnp_asarray(x))
-    assert xp.shape[1] == 256
-    out = jax.jit(lambda a, v: op.apply_padded(a, v))(op.arrays, xp)
-    z = np.asarray(op.unpad_output(out, 130))
+@pytest.mark.parametrize("dim", [130, 257])
+def test_wide_dim_past_power_of_two(dim):
+    """Feature widths past a power of two: the kernel loads a masked
+    power-of-two column block and stores only the true width."""
+    rp, ci, nn = _block_graph()
+    op = kop(rp, ci, nn, PlanConfig(impl="triton", band_mode="always",
+                                    band_h=32, band_widths=(256,)))
+    x = np.random.RandomState(1).randn(nn, dim).astype(np.float32)
+    z = np.asarray(jax.jit(op)(jnp.asarray(x)))
     zref = spmm_reference_dense(rp, ci, nn, x)
     scale = np.abs(zref).max() + 1e-9
+    assert z.shape == (nn, dim)
     assert np.abs(z - zref).max() / scale < 1e-5
 
 
-def test_padded_multi_bucket_scatter():
-    """Two-bucket full-cover plan through the padded layout: main-bucket
-    direct write + block scatter, closed [M, dp] -> [M, dp]."""
+def test_multi_bucket_merge_chain():
+    """Two-bucket full-cover plan: each bucket's kernel output goes
+    through the merge permutation."""
     rng = np.random.RandomState(0)
     # mixed component sizes -> mixed extents -> two width buckets
     sizes = [24] * 12 + [120] * 2
@@ -358,20 +312,15 @@ def test_padded_multi_bucket_scatter():
     k = src != dst
     nn = lo
     rp, ci = io.to_csr(src[k], dst[k], nn)
-    op = HybridSpMM(rp, ci, nn, PlanConfig(
-        impl="pallas", band_mode="always", band_h=32,
-        band_widths=(64, 256)))
+    op = kop(rp, ci, nn, PlanConfig(impl="triton", band_mode="always",
+                                    band_h=32, band_widths=(64, 256)))
     plan = op.plan
-    if sum(len(s) > 0 for s in plan.band_sw_ids) < 2:
-        pytest.skip("graph didn't split into two buckets")
-    assert op.supports_padded
+    assert sum(len(s) > 0 for s in plan.band_sw_ids) == 2
+    assert plan.direct_bucket == -1
     x = rng.randn(nn, 12).astype(np.float32)
-    xp = op.pad_input(jnp_asarray(x))
-    out = jax.jit(lambda a, v: op.apply_padded(a, op.apply_padded(a, v))
-                  )(op.arrays, xp)
-    z = np.asarray(op.unpad_output(out, 12))
+    out = jax.jit(lambda a, v: op.apply(a, op.apply(a, v)))(
+        op.arrays, jnp.asarray(x))
     zref = spmm_reference_dense(
         rp, ci, nn, spmm_reference_dense(rp, ci, nn, x))
     scale = np.abs(zref).max() + 1e-9
-    assert np.abs(z - zref).max() / scale < 1e-5
-    assert (np.asarray(out)[nn:] == 0).all()
+    assert np.abs(np.asarray(out) - zref).max() / scale < 1e-5
